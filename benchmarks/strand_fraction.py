@@ -1,7 +1,7 @@
 """Measure how many candidate windows are single-strand at default
 thresholds — i.e. how much host DP the per-chain screen flags save.
 
-Run on the real TPU chip:  python benchmarks/strand_fraction.py [mbases]
+Run on the GPU:  python benchmarks/strand_fraction.py [mbases]
 """
 import sys
 import time

@@ -7,7 +7,7 @@ PAM extension, intra-window dedup and the full GuideAlignment rendering
 ``SequentialAligner.align`` (SequentialGuideAligner.scala:228-322) —
 enforced by the differential fuzz in tests/test_batch_finish.py.
 
-The production host-finish path of the TPU search is
+The production host-finish path of the device search is
 :func:`finish_rendered` (native buffers straight to final TSV lines +
 dedup keys at ~5 us/window of Python); :func:`finish_windows` decodes
 the same buffers into :class:`GuideAlignment` objects and anchors the

@@ -12,7 +12,7 @@ Reimplements the full observable behavior of the reference's
      ``edits <= max_total_diffs`` applied as a post-filter (:315-322).
 
 The DP itself is pluggable: the default is the exact NumPy oracle; the
-TPU search path screens windows on-device first and only runs this code on
+device search path screens windows on-device first and only runs this code on
 candidate windows.
 """
 

@@ -10,6 +10,7 @@ import logging
 import sys
 
 from calitas_tpu.core.scoring import Defaults
+from calitas_tpu.utils import ENGINES
 
 
 class _Once(argparse.Action):
@@ -45,7 +46,7 @@ def _add_scoring_args(p: argparse.ArgumentParser) -> None:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="calitas-tpu",
-        description="TPU-native CRISPR off-target search (CALITAS-compatible).",
+        description="CRISPR off-target search on a GPU (CALITAS-compatible).",
     )
     from calitas_tpu.version import aligner_version
 
@@ -110,8 +111,9 @@ overlapping alignments instead.""",
     _add_scoring_args(sr)
     sr.add_argument("-c", "--chrom", default=None,
                     help="Examine only the named chromosome.")
-    sr.add_argument("--engine", choices=["auto", "host", "tpu"], default="auto",
-                    help="Execution engine (auto: TPU screen when available).")
+    sr.add_argument("--engine", choices=ENGINES, default="auto",
+                    help="Execution engine (auto: device screen when an "
+                         "accelerator is present; tpu = device).")
     sr.add_argument("--profile-dir", default=None,
                     help="Write a JAX profiler trace of the run to this directory.")
     sr.add_argument("--checkpoint", default=None,
@@ -126,7 +128,8 @@ overlapping alignments instead.""",
                          "genome by whole contigs.")
     sr.add_argument("--distributed", action="store_true",
                     help="Initialize jax.distributed from the environment "
-                         "(TPU pod slice); process index/count default to the "
+                         "(JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, "
+                         "JAX_PROCESS_ID); process index/count default to the "
                          "JAX process identity.")
 
     # --------------------------------------------------------- AlignToReference
@@ -148,9 +151,9 @@ overlapping alignments instead.""",
     ar.add_argument("-O", "--max-overlap", type=int, default=None)
     _add_scoring_args(ar)
     ar.add_argument("-t", "--threads", type=int, default=8)
-    ar.add_argument("--engine", choices=["auto", "host", "tpu"], default="auto",
-                    help="Execution engine (auto: TPU pair screen when "
-                         "available; output-identical).")
+    ar.add_argument("--engine", choices=ENGINES, default="auto",
+                    help="Execution engine (auto: device pair screen when "
+                         "available; output-identical; tpu = device).")
 
     # ---------------------------------------------------- PairwiseAlignSequences
     pw = sub.add_parser(
@@ -163,9 +166,9 @@ overlapping alignments instead.""",
                     default=Defaults.MAX_GAPS_BETWEEN_GUIDE_AND_PAM)
     pw.add_argument("-O", "--max-overlap", type=int, default=Defaults.MAX_OVERLAP)
     _add_scoring_args(pw)
-    pw.add_argument("--engine", choices=["auto", "host", "tpu"], default="auto",
-                    help="Execution engine (auto: TPU pair screen when "
-                         "available; output-identical).")
+    pw.add_argument("--engine", choices=ENGINES, default="auto",
+                    help="Execution engine (auto: device pair screen when "
+                         "available; output-identical; tpu = device).")
 
     # ----------------------------------------------------------- MergeHitTables
     mh = sub.add_parser(
@@ -193,7 +196,7 @@ overlapping alignments instead.""",
     sv.add_argument("-t", "--threads", type=int, default=8)
     sv.add_argument("-c", "--contigs", nargs="*", default=None,
                     help="Stage only these contigs (default: all).")
-    sv.add_argument("--engine", choices=["auto", "host", "tpu"], default="auto")
+    sv.add_argument("--engine", choices=ENGINES, default="auto")
     sv.add_argument("--warmup", type=_strict_bool, nargs="?", const=True,
                     default=True, metavar="true|false",
                     help="Run a throwaway search at startup so the first "

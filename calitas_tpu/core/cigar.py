@@ -147,6 +147,11 @@ class LazyCigar(Cigar):
     def __str__(self) -> str:
         return self._raw
 
+    def __reduce__(self):
+        # The default slot-state pickle would restore ``elems`` through
+        # the read-only property once it has been parsed.
+        return (LazyCigar, (self._raw,))
+
 
 def length_on_target_str(s: str) -> int:
     """``Cigar(s).length_on_target`` without materializing elements.

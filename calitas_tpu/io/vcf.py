@@ -156,7 +156,7 @@ class VcfIndex:
     lines held as one bytes blob with per-chromosome position/offset
     arrays; records parse lazily at query time.
 
-    This is the TPU framework's stand-in for the reference's indexed
+    This is the framework's stand-in for the reference's indexed
     per-chromosome query (SearchReference.scala:227-231): the reference
     opens a VariantSource backed by a tabix/contig index and pulls one
     chromosome at a time; here ``query(chrom)`` is a dict lookup plus a

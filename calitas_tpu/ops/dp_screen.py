@@ -20,9 +20,12 @@ computed as ``cummax(tmp - i*tgap) + i*tgap`` along the (tiny) Q axis.
 All lanes of the [B, Q+1] tile do useful work; batch B provides the
 parallelism.
 
-This module is deliberately pure-XLA (runs on CPU/TPU identically); the
-Pallas kernel in ``dp_pallas2`` is a drop-in replacement for the same
-contract.
+``gate`` applies the PAM gate bits that ``annotate_genome_pam`` puts in
+bits 4/5 of each target byte, exactly as the GPU kernel
+(``ops/dp_kernel.py``) does: ``"end"`` (chain A) lets only columns with
+bit 4 end an alignment; ``"start"`` (chain B) closes the free start
+(row 0) on columns without bit 5.  This module is the plain reference
+of that kernel and the screen on backends the kernel does not serve.
 """
 
 from __future__ import annotations
@@ -38,110 +41,111 @@ from calitas_tpu import _enable_jax_compilation_cache
 _enable_jax_compilation_cache()
 from calitas_tpu.core.scoring import Scorer
 
+NEG_INF = -(2**30)
+#: chain B's closed-start row-0 value: far below any reachable DP value,
+#: far above int32 overflow as gap costs accumulate
+NEG_GATE = -(2**26)
 
-@partial(jax.jit, static_argnames=("match", "mismatch", "qgap", "tgap"))
-def _screen_scores(qmask, tmasks, lengths, match, mismatch, qgap, tgap):
+_SCORES = ("match", "mismatch", "qgap", "tgap")
+
+
+def _column_step(qmask, match, mismatch, qgap, tgap, gate):
+    """The scan step shared by every XLA screen: (column [B, Q+1], tcol
+    [B] uint8) -> (new column, end score [B] before length masking), plus
+    the initial column's row offsets."""
+    Q = qmask.shape[0]
+    qm = qmask.astype(jnp.uint8)
+    idec = jnp.arange(Q + 1, dtype=jnp.int32) * tgap
+
+    def step(s_prev, tcol):
+        B = s_prev.shape[0]
+        compat = (qm[None, :] & tcol[:, None]) != 0  # [B, Q]
+        pair = jnp.where(compat, jnp.int32(match), jnp.int32(mismatch))
+        tmp = jnp.maximum(s_prev[:, :-1] + pair, s_prev[:, 1:] + jnp.int32(qgap))
+        if gate == "start":
+            row0 = jnp.where((tcol & 32) != 0, 0, NEG_GATE).astype(jnp.int32)
+        else:
+            row0 = jnp.zeros((B,), jnp.int32)  # free start
+        tmp_full = jnp.concatenate([row0[:, None], tmp], axis=1)
+        new = jax.lax.cummax(tmp_full - idec[None, :], axis=1) + idec[None, :]
+        end = new[:, Q]
+        if gate == "end":
+            end = jnp.where((tcol & 16) != 0, end, NEG_INF)
+        return new, end
+
+    return idec, step
+
+
+@partial(jax.jit, static_argnames=(*_SCORES, "gate"))
+def _screen_scores(qmask, tmasks, lengths, match, mismatch, qgap, tgap,
+                   gate=None):
     """Best final-row score over valid end columns, per batch row.
 
     qmask:   [Q]    uint8 query IUPAC masks (uppercase guide)
-    tmasks:  [B, T] uint8 target masks (N and padding -> 0)
+    tmasks:  [B, T] uint8 target masks (N and padding -> 0; bits 4/5 =
+             PAM gate when ``gate`` is set)
     lengths: [B]    int32 valid window lengths (end columns > length ignored)
     returns: [B]    int32 max_{1<=j<=len} S[Q, j]
     """
     B, T = tmasks.shape
-    Q = qmask.shape[0]
-    qm = qmask.astype(jnp.uint8)
-    idec = jnp.arange(Q + 1, dtype=jnp.int32) * tgap  # [Q+1]
-
-    init_col = jnp.broadcast_to(idec, (B, Q + 1))  # S[:, i, 0] = i * tgap
-    neg_inf = jnp.int32(-(2**30))
+    idec, col = _column_step(qmask, match, mismatch, qgap, tgap, gate)
 
     def step(carry, xs):
         s_prev, best = carry
-        tcol, j = xs  # tcol: [B] uint8, j: scalar int32 (1-based column)
-        compat = (qm[None, :] & tcol[:, None]) != 0  # [B, Q]
-        pair = jnp.where(compat, jnp.int32(match), jnp.int32(mismatch))
-        diag = s_prev[:, :-1] + pair
-        left = s_prev[:, 1:] + jnp.int32(qgap)
-        tmp = jnp.maximum(diag, left)  # rows 1..Q
-        tmp_full = jnp.concatenate(
-            [jnp.zeros((B, 1), jnp.int32), tmp], axis=1
-        )  # row 0 = 0 (free start)
-        new = jax.lax.cummax(tmp_full - idec[None, :], axis=1) + idec[None, :]
-        end_score = jnp.where(j <= lengths, new[:, Q], neg_inf)
-        best = jnp.maximum(best, end_score)
+        tcol, j = xs
+        new, end = col(s_prev, tcol)
+        best = jnp.maximum(best, jnp.where(j <= lengths, end, NEG_INF))
         return (new, best), None
 
     xs = (tmasks.T, jnp.arange(1, T + 1, dtype=jnp.int32))
-    (_, best), _ = jax.lax.scan(
-        step, (init_col, jnp.full((B,), neg_inf, jnp.int32)), xs
-    )
+    init = (jnp.broadcast_to(idec, (B, idec.shape[0])),
+            jnp.full((B,), NEG_INF, jnp.int32))
+    (_, best), _ = jax.lax.scan(step, init, xs)
     return best
 
 
-@partial(jax.jit, static_argnames=("match", "mismatch", "qgap", "tgap"))
+@partial(jax.jit, static_argnames=(*_SCORES, "gate"))
 def _screen_scores_ranges(
-    qmask, tmasks, lengths, min_score, match, mismatch, qgap, tgap
+    qmask, tmasks, lengths, min_score, match, mismatch, qgap, tgap, gate=None
 ):
     """Like :func:`_screen_scores` but also returns the (min, max) 1-based
     end columns whose final-row score reaches ``min_score`` (min = T+1 /
     max = 0 when none) — the device side of the sliced host finish."""
     B, T = tmasks.shape
-    Q = qmask.shape[0]
-    qm = qmask.astype(jnp.uint8)
-    idec = jnp.arange(Q + 1, dtype=jnp.int32) * tgap
-    init_col = jnp.broadcast_to(idec, (B, Q + 1))
-    neg_inf = jnp.int32(-(2**30))
+    idec, col = _column_step(qmask, match, mismatch, qgap, tgap, gate)
     ms = jnp.asarray(min_score, jnp.int32)
 
     def step(carry, xs):
         s_prev, best, mn, mx = carry
         tcol, j = xs
-        compat = (qm[None, :] & tcol[:, None]) != 0
-        pair = jnp.where(compat, jnp.int32(match), jnp.int32(mismatch))
-        tmp = jnp.maximum(s_prev[:, :-1] + pair, s_prev[:, 1:] + jnp.int32(qgap))
-        tmp_full = jnp.concatenate([jnp.zeros((B, 1), jnp.int32), tmp], axis=1)
-        new = jax.lax.cummax(tmp_full - idec[None, :], axis=1) + idec[None, :]
-        end_score = jnp.where(j <= lengths, new[:, Q], neg_inf)
-        best = jnp.maximum(best, end_score)
-        qual = end_score >= ms
+        new, end = col(s_prev, tcol)
+        end = jnp.where(j <= lengths, end, NEG_INF)
+        best = jnp.maximum(best, end)
+        qual = end >= ms
         mn = jnp.where(qual, jnp.minimum(mn, j), mn)
         mx = jnp.where(qual, j, mx)
         return (new, best, mn, mx), None
 
     xs = (tmasks.T, jnp.arange(1, T + 1, dtype=jnp.int32))
-    (_, best, mn, mx), _ = jax.lax.scan(
-        step,
-        (
-            init_col,
-            jnp.full((B,), neg_inf, jnp.int32),
-            jnp.full((B,), T + 1, jnp.int32),
-            jnp.zeros((B,), jnp.int32),
-        ),
-        xs,
+    init = (
+        jnp.broadcast_to(idec, (B, idec.shape[0])),
+        jnp.full((B,), NEG_INF, jnp.int32),
+        jnp.full((B,), T + 1, jnp.int32),
+        jnp.zeros((B,), jnp.int32),
     )
+    (_, best, mn, mx), _ = jax.lax.scan(step, init, xs)
     return best, mn, mx
 
 
-@partial(jax.jit, static_argnames=("match", "mismatch", "qgap", "tgap"))
+@partial(jax.jit, static_argnames=_SCORES)
 def _final_rows(qmask, tmasks, match, mismatch, qgap, tgap):
     """Full final DP row per batch element: [B, T] with entry j-1 = S[Q, j].
-    (Used by tests and by the hit-extraction path.)"""
-    B, T = tmasks.shape
-    Q = qmask.shape[0]
-    qm = qmask.astype(jnp.uint8)
-    idec = jnp.arange(Q + 1, dtype=jnp.int32) * tgap
-    init_col = jnp.broadcast_to(idec, (B, Q + 1))
-
-    def step(s_prev, tcol):
-        compat = (qm[None, :] & tcol[:, None]) != 0
-        pair = jnp.where(compat, jnp.int32(match), jnp.int32(mismatch))
-        tmp = jnp.maximum(s_prev[:, :-1] + pair, s_prev[:, 1:] + jnp.int32(qgap))
-        tmp_full = jnp.concatenate([jnp.zeros((B, 1), jnp.int32), tmp], axis=1)
-        new = jax.lax.cummax(tmp_full - idec[None, :], axis=1) + idec[None, :]
-        return new, new[:, Q]
-
-    _, rows = jax.lax.scan(step, init_col, tmasks.T)
+    (Used by tests as the per-column reference.)"""
+    B, _ = tmasks.shape
+    idec, col = _column_step(qmask, match, mismatch, qgap, tgap, None)
+    _, rows = jax.lax.scan(
+        col, jnp.broadcast_to(idec, (B, idec.shape[0])), tmasks.T
+    )
     return rows.T  # [B, T]
 
 
@@ -151,47 +155,24 @@ class ScreenKernel:
     def __init__(self, scorer: Scorer):
         self.scorer = scorer
 
-    def prepare_targets(self, tmasks: np.ndarray, lengths: np.ndarray):
-        """Upload a target batch once; the handle serves every query
-        (multi-guide screens share one H2D per batch)."""
-        return (jnp.asarray(tmasks), jnp.asarray(lengths, dtype=jnp.int32))
-
-    def max_scores_prepared_async(self, qmask: np.ndarray, prepared):
-        """Dispatch the screen on a prepared batch and return a zero-arg
-        resolver: the device computes while the host prepares the next
-        batch (the variant pass double-buffers through this)."""
-        tm, ln = prepared
+    def _scores(self):
         s = self.scorer
-        out = _screen_scores(
-            jnp.asarray(qmask), tm, ln,
-            match=s.match_score,
-            mismatch=s.mismatch_score,
-            qgap=s.query_gap_score,
-            tgap=s.target_gap_score,
-        )
-        return lambda: np.asarray(out)
-
-    def max_scores_async(
-        self, qmask: np.ndarray, tmasks: np.ndarray, lengths: np.ndarray
-    ):
-        return self.max_scores_prepared_async(
-            qmask, self.prepare_targets(tmasks, lengths)
+        return dict(
+            match=s.match_score, mismatch=s.mismatch_score,
+            qgap=s.query_gap_score, tgap=s.target_gap_score,
         )
 
     def max_scores(
         self, qmask: np.ndarray, tmasks: np.ndarray, lengths: np.ndarray
     ) -> np.ndarray:
-        return self.max_scores_async(qmask, tmasks, lengths)()
+        return np.asarray(
+            _screen_scores(
+                jnp.asarray(qmask), jnp.asarray(tmasks),
+                jnp.asarray(lengths, dtype=jnp.int32), **self._scores()
+            )
+        )
 
     def final_rows(self, qmask: np.ndarray, tmasks: np.ndarray) -> np.ndarray:
-        s = self.scorer
         return np.asarray(
-            _final_rows(
-                jnp.asarray(qmask),
-                jnp.asarray(tmasks),
-                match=s.match_score,
-                mismatch=s.mismatch_score,
-                qgap=s.query_gap_score,
-                tgap=s.target_gap_score,
-            )
+            _final_rows(jnp.asarray(qmask), jnp.asarray(tmasks), **self._scores())
         )

@@ -207,9 +207,8 @@ class PairScreen:
             for c0 in range(0, len(idxs), self.batch_rows):
                 chunk = idxs[c0 : c0 + self.batch_rows]
                 # Bucket the batch shape to a power of two: XLA compiles
-                # per static shape, and a remote-compile backend pays
-                # tens of seconds per shape — a ragged tail chunk must
-                # not trigger a fresh compile.  Pad rows have length 0
+                # per static shape — a ragged tail chunk must not
+                # trigger a fresh compile.  Pad rows have length 0
                 # (every end column masked) and are discarded below.
                 B = max(64, 1 << (len(chunk) - 1).bit_length())
                 qa = np.zeros((B, Q), dtype=np.uint8)

@@ -1,6 +1,6 @@
 """Host-side parallel window execution.
 
-The TPU-native analogue of the reference's bounded-queue thread pool
+The analogue of the reference's bounded-queue thread pool
 (SearchReference.scala:75-94).  Measured on this workload (short native
 calls interleaved with Python object construction) Python *threads* run
 slower than serial due to GIL contention, so the production path uses
@@ -474,6 +474,19 @@ _SHARED_POOL_SIZE = 0
 _SHARED_POOL_ATEXIT = False
 
 
+def _pin_worker_to_cpu() -> None:
+    """Pool workers run host code only: pin any JAX they import to the CPU
+    before anything can open a device, so the parent stays the one
+    process on each accelerator (a JAX process reserves most of a card's
+    memory when it first touches it)."""
+    import os
+    import sys
+
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    if "jax" in sys.modules:
+        sys.modules["jax"].config.update("jax_platforms", "cpu")
+
+
 def _shared_pool(processes: int):
     """A lazily-created, process-wide worker pool (spawning workers costs
     ~1s each; searches call the pool once per contig x guide)."""
@@ -489,7 +502,8 @@ def _shared_pool(processes: int):
             # CancelledError, which drain() recomputes in-process.
             _SHARED_POOL.shutdown(wait=False, cancel_futures=True)
         _SHARED_POOL = ProcessPoolExecutor(
-            max_workers=processes, mp_context=mp.get_context("spawn")
+            max_workers=processes, mp_context=mp.get_context("spawn"),
+            initializer=_pin_worker_to_cpu,
         )
         _SHARED_POOL_SIZE = processes
         if not _SHARED_POOL_ATEXIT:

@@ -1,8 +1,8 @@
 """Device-mesh sharding of the search.
 
 The reference's only parallelism is a single-host JVM thread pool over
-windows (SearchReference.scala:75-94); the TPU-native design shards the
-genome across chips instead (SURVEY.md §2.10):
+windows (SearchReference.scala:75-94); this design shards the
+genome across devices instead (SURVEY.md §2.10):
 
   - **dp axis ("windows")**: batches of fixed-shape windows are sharded
     across devices; each device runs the DP screen on its shard, and hit
@@ -55,8 +55,7 @@ def sharded_screen_fn(mesh: Mesh, scorer: Scorer):
     end-to-end.
 
     Cached per (mesh, scorer): looping callers (screen_on_mesh per batch)
-    reuse one traced function instead of retracing — a remote-compile
-    backend pays tens of seconds per fresh trace."""
+    reuse one traced function instead of retracing."""
     key = (
         tuple(d.id for d in mesh.devices.flat), mesh.axis_names,
         scorer.match_score, scorer.mismatch_score,

@@ -777,29 +777,28 @@ def screened_variant_windows_multi(
     import numpy as np
 
     from calitas_tpu.core.sequence import TARGET_MASK_TABLE, encode_query, revcomp
-    from calitas_tpu.ops.dp_pallas2 import PallasScreenKernelV2
-    from calitas_tpu.ops.genome_screen import default_device_platform
+    from calitas_tpu.ops.genome_screen import default_device_platform, kernel_for
 
-    on_tpu = default_device_platform() == "tpu"
+    on_gpu = default_device_platform() == "gpu"
     # Same-length guide groups: one fused dispatch per group per batch.
-    by_len: dict = {}  # (use_pallas, Q) -> [keys], [qv2 [2,Q]], [min_score]
+    by_len: dict = {}  # (use_kernel, Q) -> [keys], [qv2 [2,Q]], [min_score]
     for key, guide, min_score in guide_specs:
         dp_query = guide.guide_rc if guide.pam_is_5prime else guide.guide_fw
         qmask_fw = encode_query(dp_query)
         qmask_rc = encode_query(revcomp(dp_query))
-        use_pallas = on_tpu and PallasScreenKernelV2.supports(len(qmask_fw))
+        use_kernel = kernel_for(on_gpu, len(qmask_fw))
         ks, qs, ms = by_len.setdefault(
-            (use_pallas, len(qmask_fw)), ([], [], [])
+            (use_kernel, len(qmask_fw)), ([], [], [])
         )
         ks.append(key)
         qs.append(np.stack([qmask_fw, qmask_rc]).astype(np.int32))
         ms.append(min_score)
     group_keys = [ks for ks, _, _ in by_len.values()]
     groups = [
-        (use_pallas, np.stack(qs), np.asarray(ms, np.int32))
-        for (use_pallas, _), (ks, qs, ms) in by_len.items()
+        (use_kernel, np.stack(qs), np.asarray(ms, np.int32))
+        for (use_kernel, _), (ks, qs, ms) in by_len.items()
     ]
-    any_pallas = any(up for up, _, _ in groups)
+    any_kernel = any(uk for uk, _, _ in groups)
 
     all_keys = frozenset(k for k, *_ in guide_specs)
     # The batch is a list of SEGMENTS — (block, row-indices) spans from
@@ -812,12 +811,9 @@ def screened_variant_windows_multi(
     pending: list = []  # [(segments, [([keys], resolver), ...] | None)]
 
     def _warn_device_failure():
-        import logging
+        from calitas_tpu.utils import note_degraded
 
-        logging.getLogger("calitas_tpu.SearchReference").warning(
-            "Device variant screen unavailable; aligning this batch's "
-            "windows unscreened.", exc_info=True,
-        )
+        note_degraded("variant screen", "batch aligned unscreened")
 
     def _seg_lengths(item, bis):
         if bis is None:
@@ -839,13 +835,12 @@ def screened_variant_windows_multi(
             int(_seg_lengths(item, bis).max()) for item, bis in batch
         )
         slot_b = max(64, 1 << (longest - 1).bit_length())
-        # The Pallas kernel needs whole [8, 128] blocks per device; the
-        # packer needs a multiple of 8.  Padding rows are zero -> never
-        # flagged above any real threshold's windows (trimmed at
-        # resolve).
+        # The kernel needs whole blocks per device; the packer needs a
+        # multiple of 8.  Padding rows are zero -> never flagged above
+        # any real threshold's windows (trimmed at resolve).
         from calitas_tpu.ops.genome_screen import slot_batch_unit
 
-        unit = slot_batch_unit(any_pallas, mesh)
+        unit = slot_batch_unit(any_kernel, mesh)
         B = -(-max(batch_count, batch_slots) // unit) * unit
         tmasks = np.zeros((B, slot_b), dtype=np.uint8)
         lengths = np.zeros(B, dtype=np.int32)

@@ -1,12 +1,11 @@
 """Resident-genome serving: amortize staging and indexing across searches.
 
 The reference is a batch CLI: every invocation re-reads the genome and
-(if given) re-parses the VCF (SearchReference.scala:513-648).  On TPU the
+(if given) re-parses the VCF (SearchReference.scala:513-648).  On a GPU the
 expensive one-time work is different — uploading contig masks to device
-HBM and building the in-memory VCF index — and both are reusable across
+memory and building the in-memory VCF index — and both are reusable across
 guides, so a long-lived server process can answer per-guide searches at
-warm-search speed (the multi-guide 1 Gb measurement in
-docs/PERFORMANCE.md is exactly this regime).
+warm-search speed.
 
 :class:`ResidentSearcher` holds the staged genome, the screen and the
 VCF index; each :meth:`search` call runs the full production
@@ -29,6 +28,7 @@ from pathlib import Path
 from typing import Optional, Sequence
 
 from calitas_tpu.core.scoring import Defaults
+from calitas_tpu.ops.genome_screen import BATCH_WINDOWS
 
 logger = logging.getLogger("calitas_tpu.Serve")
 
@@ -49,7 +49,7 @@ class ResidentSearcher:
         window_size: int = 1000,
         threads: int = 8,
         engine: str = "auto",
-        batch_windows: int = 8192,
+        batch_windows: int = BATCH_WINDOWS,
         guide_mismatch_net_cost: int = Defaults.MISMATCH_NET_COST,
         pam_mismatch_net_cost: int = Defaults.PAM_MISMATCH_NET_COST,
         genome_gap_net_cost: int = Defaults.GENOME_GAP_NET_COST,
@@ -59,6 +59,7 @@ class ResidentSearcher:
     ):
         from calitas_tpu.io.fasta import IndexedFasta, extract_dictionary
         from calitas_tpu.tools.search_reference import _resolve_engine
+        from calitas_tpu.utils import degradable, note_degraded
 
         self.ref = Path(ref)
         self.variants = Path(variants) if variants is not None else None
@@ -72,12 +73,12 @@ class ResidentSearcher:
         )
         self.dictionary = extract_dictionary(self.ref)  # required, like the tool
         self._fasta = IndexedFasta(self.ref)
-        self.use_tpu = _resolve_engine(engine)
-        self.engine = "tpu" if self.use_tpu else "host"
+        self.use_device = _resolve_engine(engine)
+        self.engine = "device" if self.use_device else "host"
 
         self._screen = None
         self._staged: dict = {}
-        if self.use_tpu and stage:
+        if self.use_device and stage:
             from calitas_tpu.align.engine import SequentialAligner
             from calitas_tpu.ops.genome_screen import GenomeScreen
 
@@ -99,13 +100,12 @@ class ResidentSearcher:
                     self._staged[name] = self._screen.stage(
                         self._fasta.get_bases(name)
                     )
-                except Exception:
+                except Exception as ex:
                     # Degrade exactly like the tool: an unstaged contig
                     # falls back to host alignment inside screened_search.
-                    logger.warning(
-                        "Staging failed for %s; searches will align this "
-                        "contig on the host.", name, exc_info=True,
-                    )
+                    if not degradable(ex):
+                        raise
+                    note_degraded("staging", name)
             logger.info(
                 "Staged %d contigs in %.1fs.", len(self._staged),
                 time.perf_counter() - t0,

@@ -63,7 +63,7 @@ def run(
     genome_gap_net_cost: int = Defaults.GENOME_GAP_NET_COST,
     guide_gap_net_cost: int = Defaults.GUIDE_GAP_NET_COST,
     threads: int = 8,
-    engine: str = "auto",  # 'auto' | 'host' | 'tpu'
+    engine: str = "auto",  # one of utils.ENGINES
 ) -> None:
     ref_file = IndexedFasta(ref)
     if ref_file.dictionary is None or len(ref_file.dictionary) == 0:
@@ -159,11 +159,11 @@ def run(
 
     from calitas_tpu.tools.search_reference import _resolve_engine
 
-    use_tpu = _resolve_engine(
+    use_device = _resolve_engine(
         engine, n_tasks=len(tasks), prefer_host_when_native=True
     )
     pair_screen = None
-    if use_tpu:
+    if use_device:
         from calitas_tpu.ops.pair_screen import PairScreen
 
         pair_screen = PairScreen(aligner.scorer)

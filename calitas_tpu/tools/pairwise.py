@@ -33,7 +33,7 @@ def run(
     pam_mismatch_net_cost: int = Defaults.PAM_MISMATCH_NET_COST,
     genome_gap_net_cost: int = Defaults.GENOME_GAP_NET_COST,
     guide_gap_net_cost: int = Defaults.GUIDE_GAP_NET_COST,
-    engine: str = "auto",  # 'auto' | 'host' | 'tpu'
+    engine: str = "auto",  # one of utils.ENGINES
 ) -> None:
     tasks: list = []
     with open(input) as fh:

@@ -8,8 +8,9 @@ per-locus alignments, sorted in dictionary order, and written as the
 
 Execution engines:
   - ``host``: every window is aligned with the exact host engine.
-  - ``tpu`` (default when JAX sees an accelerator): windows are batched to
-    the device DP *screen* kernel, which computes exact final-row DP scores
+  - ``device`` (``tpu`` is its former name, still accepted; the default
+    when JAX sees an accelerator): windows are batched to the device DP
+    *screen* kernel, which computes exact final-row DP scores
     for every window x strand; only windows with a qualifying end column
     (sparse) are handed to the host engine for traceback + PAM extension.
     The screen is exact (integer DP), so results are identical.
@@ -32,7 +33,7 @@ from calitas_tpu.search.hits import (
     RenderedBlock,
     count_rows,
 )
-from calitas_tpu.utils import camel_to_gnu
+from calitas_tpu.utils import ENGINES, camel_to_gnu
 
 logger = logging.getLogger("calitas_tpu.SearchReference")
 
@@ -81,7 +82,7 @@ def run(
     genome_gap_net_cost: int = Defaults.GENOME_GAP_NET_COST,
     guide_gap_net_cost: int = Defaults.GUIDE_GAP_NET_COST,
     chrom: Optional[str] = None,
-    engine: str = "auto",  # 'auto' | 'host' | 'tpu'
+    engine: str = "auto",  # one of ENGINES
     profile_dir: Optional[str] = None,
     checkpoint: Optional[str | Path] = None,
     process_index: Optional[int] = None,
@@ -96,14 +97,14 @@ def run(
 
     run_start = _time.perf_counter()
     if distributed:
-        # On a jax.distributed deployment (TPU pod slice / multi-host),
-        # initialize() picks coordinator + process identity up from the
-        # cluster environment (TPU metadata / Slurm / MPI); the contig
-        # partition below then keys off the process identity
-        # automatically.  Outside those clusters the coordinator can be
-        # given explicitly via JAX_COORDINATOR_ADDRESS /
-        # JAX_NUM_PROCESSES / JAX_PROCESS_ID (exercised by the
-        # two-process CPU-backend test in tests/test_multihost.py).
+        # On a jax.distributed deployment (multi-host), initialize()
+        # picks coordinator + process identity up from the cluster
+        # environment (Slurm / MPI); the contig partition below then
+        # keys off the process identity automatically.  Outside those
+        # clusters the coordinator can be given explicitly via
+        # JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
+        # (exercised by the two-process CPU-backend test in
+        # tests/test_multihost.py).
         import os as _os
 
         import jax
@@ -242,8 +243,8 @@ def run(
         return window_size - window_overlap
 
     progress = ProgressLogger(logger, noun="windows", verb="Processed", unit=25_000)
-    use_tpu = _resolve_engine(engine)
-    if use_tpu and window_size > 2048:
+    use_device = _resolve_engine(engine)
+    if use_device and window_size > 2048:
         from calitas_tpu.ops.genome_screen import range_block
 
         # Ranges stay on at any width but get coarser (range_block
@@ -308,7 +309,7 @@ def run(
             contig_hits: list[ReferenceHit] = []
             _run_both_passes(
                 name, contig_hits, specs, builders, aligner, ref_file,
-                vcf_index, max_variants, window_size, step_for, use_tpu,
+                vcf_index, max_variants, window_size, step_for, use_device,
                 threads, align_kwargs, progress, logger,
                 screen=_screen, prestaged=_prestaged, mesh=mesh,
             )
@@ -323,14 +324,14 @@ def run(
         for name in shard_contigs:
             _run_both_passes(
                 name, hits, specs, builders, aligner, ref_file, vcf_index,
-                max_variants, window_size, step_for, use_tpu, threads,
+                max_variants, window_size, step_for, use_device, threads,
                 align_kwargs, progress, logger,
                 screen=_screen, prestaged=_prestaged, mesh=mesh,
             )
     else:
         _run_both_passes(
             chrom, hits, specs, builders, aligner, ref_file, vcf_index,
-            max_variants, window_size, step_for, use_tpu, threads,
+            max_variants, window_size, step_for, use_device, threads,
             align_kwargs, progress, logger,
             screen=_screen, prestaged=_prestaged, mesh=mesh,
         )
@@ -342,7 +343,7 @@ def run(
 
 def _run_both_passes(
     chrom, hits, specs, builders, aligner, ref_file, variants, max_variants,
-    window_size, step_for, use_tpu, threads, align_kwargs, progress, logger,
+    window_size, step_for, use_device, threads, align_kwargs, progress, logger,
     screen=None, prestaged=None, mesh=None,
 ):
     """Both search passes (reference windows + variant windows) for one
@@ -354,7 +355,7 @@ def _run_both_passes(
         logger, noun="hits", verb="Collected", unit=25_000
     )
 
-    # Start the variant-pass feeds BEFORE the reference pass (use_tpu
+    # Start the variant-pass feeds BEFORE the reference pass (use_device
     # only): the native window builder + device screen produce from a
     # BlockFeed thread immediately, overlapping pass 1 — the builder is
     # the variant pass's dominant host phase, and serialized behind
@@ -362,7 +363,7 @@ def _run_both_passes(
     # lazy iterator (the host pass already saturates every core).
     variant_feeds = _start_variant_feeds(
         chrom, specs, aligner, ref_file, variants, max_variants, step_for,
-        use_tpu, align_kwargs, mesh,
+        use_device, align_kwargs, mesh,
     )
 
     def _close_feeds():
@@ -373,7 +374,7 @@ def _run_both_passes(
     try:
         _reference_pass(
             chrom, hits, specs, builders, aligner, ref_file, window_size,
-            step_for, use_tpu, threads, align_kwargs, progress,
+            step_for, use_device, threads, align_kwargs, progress,
             hits_progress, logger, screen, prestaged, mesh,
         )
         logger.info("Reference windows processed.")
@@ -394,11 +395,11 @@ def _run_both_passes(
 
 def _reference_pass(
     chrom, hits, specs, builders, aligner, ref_file, window_size, step_for,
-    use_tpu, threads, align_kwargs, progress, hits_progress, logger,
+    use_device, threads, align_kwargs, progress, hits_progress, logger,
     screen, prestaged, mesh,
 ):
     """Pass 1: the unaltered reference (SearchReference.scala:527-564)."""
-    if use_tpu:
+    if use_device:
         from calitas_tpu.parallel.screen_runner import GuideTask, screened_search
 
         gtasks = [
@@ -429,7 +430,7 @@ def _reference_pass(
                 hits.append(rows)
             else:
                 hits.extend(rows)
-            # The TPU path yields per-candidate-batch row collections,
+            # The device path yields per-candidate-batch row collections,
             # not per-window results; count hits under their own noun
             # (the screen already logs the window/candidate totals).
             hits_progress.record(wchrom, wstart, n=len(rows))
@@ -459,7 +460,7 @@ def _reference_pass(
 
 def _start_variant_feeds(
     chrom, specs, aligner, ref_file, variants, max_variants, step_for,
-    use_tpu, align_kwargs, mesh,
+    use_device, align_kwargs, mesh,
 ):
     """Build the variant-pass block feeds (SearchReference.scala:570-630's
     window streams), one per guide padding group.
@@ -498,9 +499,9 @@ def _start_variant_feeds(
         # materialize Python objects.
         vwindows = variant_window_iterator(
             ref_file, variants, chrom, padding, max_variants,
-            blocks=use_tpu,
+            blocks=use_device,
         )
-        if use_tpu:
+        if use_device:
             flagged = screened_variant_windows_multi(
                 vwindows, aligner,
                 [
@@ -634,34 +635,42 @@ def _finalize(
 #: itself on large batches (the host engine is ~10 ms/item)
 AUTO_DEVICE_MIN_TASKS = 1000
 
-
 def _resolve_engine(
     engine: str,
     n_tasks: Optional[int] = None,
     prefer_host_when_native: bool = False,
 ) -> bool:
+    """True when the run screens on the device.  ``auto`` picks the device
+    whenever JAX's default backend is an accelerator (and, for the
+    list-driven tools, the batch is large enough to amortize the device
+    compilation, and the native host library is missing: those tools'
+    batched native worker is the default there).  The chosen device is
+    logged once."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
     if engine == "host":
         return False
-    if engine == "tpu":
-        return True
-    # auto: use the device screen if an accelerator is present (and, for
-    # the list-driven tools, the batch is large enough to amortize the
-    # device compilation)
-    if n_tasks is not None and n_tasks < AUTO_DEVICE_MIN_TASKS:
-        return False
-    if prefer_host_when_native:
-        # The list-driven tools' batched native worker outruns
-        # screen-then-skip (measured 3.4 vs 3.9 s at 20k pairs): auto
-        # prefers host whenever the native library exists; an explicit
-        # --engine tpu still screens on device.  ONE policy for both
-        # tools — edit here, not per tool.
-        from calitas_tpu import native
-
-        if native.available():
+    if engine == "auto":
+        if n_tasks is not None and n_tasks < AUTO_DEVICE_MIN_TASKS:
             return False
-    try:
+        if prefer_host_when_native:
+            from calitas_tpu import native
+
+            if native.available():
+                return False
         import jax
 
-        return jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
+        if jax.default_backend() == "cpu":
+            return False
+    _log_device()
+    return True
+
+
+def _log_device() -> None:
+    import jax
+
+    devs = jax.devices()
+    logging.getLogger("calitas_tpu.engine").info(
+        "Screening on %s (%s), %d device(s).",
+        devs[0].platform, devs[0].device_kind, len(devs),
+    )

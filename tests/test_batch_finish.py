@@ -2,7 +2,7 @@
 
 ``finish_windows`` must reproduce ``SequentialAligner.align`` exactly —
 same alignments, same order, same padded strings, counters and
-coordinates — because the TPU search path swaps one for the other
+coordinates — because the device search path swaps one for the other
 (the engine itself is pinned to the reference by the transcribed tests).
 """
 

@@ -57,6 +57,19 @@ class TestCigar:
         assert Cigar("14=1X1=").diff_bases() == 1
         assert Cigar("6=3D4=2I9=").diff_bases() == 5
 
+    @pytest.mark.parametrize("parsed", [False, True])
+    def test_lazy_cigar_pickles(self, parsed):
+        # worker processes ship LazyCigars back to the parent, parsed or not
+        import pickle
+
+        from calitas_tpu.core.cigar import LazyCigar
+
+        c = LazyCigar("6=3D4=2I9=")
+        if parsed:
+            assert c.diff_bases() == 5
+        back = pickle.loads(pickle.dumps(c))
+        assert str(back) == "6=3D4=2I9=" and back == c
+
 
 class TestScoring:
     def test_default_derivation(self):

@@ -10,6 +10,7 @@ from calitas_tpu.core.guide import Guide
 from calitas_tpu.io.fasta import ReferenceSetBuilder, IndexedFasta
 from calitas_tpu.ops.genome_screen import GenomeScreen
 from calitas_tpu.parallel.screen_runner import GuideTask, screened_search
+from calitas_tpu.utils import degradations, reset_degradations
 
 KW = dict(
     max_guide_diffs=5, max_pam_diffs=1, max_gaps_between_guide_and_pam=3,
@@ -24,6 +25,9 @@ class StageFails(GenomeScreen):
 
 class ScreenFails(GenomeScreen):
     def screen_contig(self, *a, **k):
+        raise RuntimeError("injected screen failure")
+
+    def screen_contig_multi_async(self, *a, **k):
         raise RuntimeError("injected screen failure")
 
 
@@ -63,17 +67,22 @@ def test_stage_failure_degrades_to_host(ref):
     fasta, guide = ref
     aligner = SequentialAligner()
     good = rows_of(fasta, guide, GenomeScreen(aligner.scorer, window=1000))
+    reset_degradations()
     degraded = rows_of(fasta, guide, StageFails(aligner.scorer, window=1000))
     assert degraded == good
     assert len(good) >= 8
+    assert degradations() == {"staging": 2}  # one per contig, counted
 
 
 def test_screen_failure_degrades_to_host(ref):
     fasta, guide = ref
     aligner = SequentialAligner()
     good = rows_of(fasta, guide, GenomeScreen(aligner.scorer, window=1000))
+    reset_degradations()
     degraded = rows_of(fasta, guide, ScreenFails(aligner.scorer, window=1000))
     assert degraded == good
+    counts = degradations()
+    assert counts["contig screen"] == 2 and counts["segmented screen dispatch"] == 2
 
 
 def test_variant_screen_failure_degrades(monkeypatch):
@@ -88,6 +97,7 @@ def test_variant_screen_failure_degrades(monkeypatch):
         raise RuntimeError("injected")
 
     monkeypatch.setattr(genome_screen, "screen_slots_multi", boom)
+    reset_degradations()
     aligner = SequentialAligner()
     g = Guide.parse("GACGCATAAAGATGAGACGCngg")
 
@@ -108,6 +118,7 @@ def test_variant_screen_failure_degrades(monkeypatch):
     ))
     assert [w.start for w, _ in out] == [w.start for w in wins]
     assert all(keys == frozenset({"g"}) for _w, keys in out)
+    assert degradations()["variant screen"] == 3  # one per batch of 4
 
 
 class StageTypeError(GenomeScreen):
@@ -204,4 +215,4 @@ def test_degradable_jax_classification():
 
     # builtin errors from our own code still classify as before
     assert not degradable(ValueError("shape mismatch"))
-    assert degradable(OSError("tunnel reset"))
+    assert degradable(OSError("device reset"))

@@ -320,7 +320,7 @@ def test_long_guide_falls_back_to_xla_screen(tmp_path):
     b = ReferenceSetBuilder()
     b.add("c").add("GT" * 300).add(proto + "TGG").add("CA" * 300)
     ref = b.to_file(tmp_path / "r.fa")
-    for engine in ("host", "tpu"):
+    for engine in ("host", "device"):
         out = tmp_path / f"{engine}.txt"
         search_reference.run(guide=proto + "nrg", guide_id="g", ref=ref,
                              output=out, engine=engine)

@@ -1,4 +1,4 @@
-"""Randomized end-to-end differential: the TPU-screened engine must emit
+"""Randomized end-to-end differential: the device-screened engine must emit
 tables identical (modulo time_stamp) to the host-only engine."""
 
 import numpy as np
@@ -45,16 +45,16 @@ def test_engines_identical_on_random_genomes(tmp_path, seed):
     ref = b.to_file(tmp_path / "ref.fa")
 
     out_host = tmp_path / "host.txt"
-    out_tpu = tmp_path / "tpu.txt"
+    out_dev = tmp_path / "device.txt"
     search_reference.run(
         guide=guide, guide_id="g", ref=ref, output=out_host, engine="host"
     )
     search_reference.run(
-        guide=guide, guide_id="g", ref=ref, output=out_tpu, engine="tpu"
+        guide=guide, guide_id="g", ref=ref, output=out_dev, engine="device"
     )
     host_rows = table_without_timestamp(out_host)
-    tpu_rows = table_without_timestamp(out_tpu)
-    assert host_rows == tpu_rows
+    dev_rows = table_without_timestamp(out_dev)
+    assert host_rows == dev_rows
     assert len(host_rows) > 0  # planted sites must be found
 
 
@@ -79,7 +79,7 @@ def test_long_guide_beyond_pallas_budget(tmp_path):
         seq[p : p + len(site)] = site
     b.add("chr1").add("".join(seq))
     fa = b.to_file(tmp_path / "ref.fa")
-    run(guide=guide, guide_id="lg", ref=fa, engine="tpu", threads=1,
+    run(guide=guide, guide_id="lg", ref=fa, engine="device", threads=1,
         output=tmp_path / "t.txt")
     run(guide=guide, guide_id="lg", ref=fa, engine="host", threads=1,
         output=tmp_path / "h.txt")
@@ -113,7 +113,7 @@ def test_engines_identical_odd_configs(tmp_path, kw):
         seq[p : p + 23] = site
     b.add("chr1").add("".join(seq))
     fa = b.to_file(tmp_path / "ref.fa")
-    run(guide=proto + "nrg", guide_id="g", ref=fa, engine="tpu",
+    run(guide=proto + "nrg", guide_id="g", ref=fa, engine="device",
         threads=1, output=tmp_path / "t.txt", **kw)
     run(guide=proto + "nrg", guide_id="g", ref=fa, engine="host",
         threads=1, output=tmp_path / "h.txt", **kw)
@@ -170,25 +170,25 @@ def test_engines_identical_with_variants(tmp_path, seed):
     vcf = vb.to_file(tmp_path / "v.vcf")
 
     out_host = tmp_path / "host.txt"
-    out_tpu = tmp_path / "tpu.txt"
+    out_dev = tmp_path / "device.txt"
     specs = [("ga", proto_a + "nrg", ()), ("gb", proto_b + "nrg", ())]
     search_reference.run(
         ref=ref, variants=vcf, output=out_host, engine="host",
         guide_specs=specs,
     )
     search_reference.run(
-        ref=ref, variants=vcf, output=out_tpu, engine="tpu",
+        ref=ref, variants=vcf, output=out_dev, engine="device",
         guide_specs=specs,
     )
     host_rows = table_without_timestamp(out_host)
-    tpu_rows = table_without_timestamp(out_tpu)
-    assert host_rows == tpu_rows
+    dev_rows = table_without_timestamp(out_dev)
+    assert host_rows == dev_rows
     assert len(host_rows) > 0
 
 
 @pytest.mark.parametrize("seed", [11, 12])
 def test_pairwise_engines_identical(tmp_path, seed):
-    """PairwiseAlignSequences --engine tpu (pair screen + exact pass
+    """PairwiseAlignSequences --engine device (pair screen + exact pass
     skipping) must emit byte-identical output to the host path,
     including 5'-PAM guides whose chain->pass mapping swaps."""
     from calitas_tpu.tools import pairwise
@@ -217,13 +217,13 @@ def test_pairwise_engines_identical(tmp_path, seed):
     out_h = tmp_path / "h.txt"
     out_t = tmp_path / "t.txt"
     pairwise.run(input=inp, output=out_h, engine="host", threads=1)
-    pairwise.run(input=inp, output=out_t, engine="tpu", threads=1)
+    pairwise.run(input=inp, output=out_t, engine="device", threads=1)
     assert out_h.read_text() == out_t.read_text()
 
 
 @pytest.mark.parametrize("all_hits", [False, True])
 def test_align_to_reference_engines_identical(tmp_path, all_hits):
-    """AlignToReference --engine tpu (pair screen bounds: exact rev-pass
+    """AlignToReference --engine device (pair screen bounds: exact rev-pass
     skip in best mode, pass restriction in all-hits mode) must emit
     tables identical to the host path."""
     from calitas_tpu.tools import align_to_reference
@@ -259,7 +259,7 @@ def test_align_to_reference_engines_identical(tmp_path, all_hits):
     out_t = tmp_path / "t.txt"
     align_to_reference.run(input=inp, ref=ref, output=out_h, engine="host",
                            threads=1, window_size=120, **kw)
-    align_to_reference.run(input=inp, ref=ref, output=out_t, engine="tpu",
+    align_to_reference.run(input=inp, ref=ref, output=out_t, engine="device",
                            threads=1, window_size=120, **kw)
     assert table_without_timestamp(out_h) == table_without_timestamp(out_t)
     assert len(table_without_timestamp(out_h)) > 0

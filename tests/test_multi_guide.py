@@ -73,7 +73,7 @@ def test_same_length_guides_use_grouped_screen(ref, tmp_path):
     g3 = "GGGGCCCCAAAATTTTACGTAnr"
     specs = [("m1", g1, ()), ("m2", g2, ()), ("m3", g3, ())]
     multi = tmp_path / "multi3.txt"
-    search_reference.run(ref=ref, output=multi, engine="tpu",
+    search_reference.run(ref=ref, output=multi, engine="device",
                          guide_specs=specs)
     multi_hits = read_metrics(multi, ReferenceHit)
 
@@ -81,7 +81,7 @@ def test_same_length_guides_use_grouped_screen(ref, tmp_path):
     for gid, g, _ in specs:
         out = tmp_path / f"{gid}.txt"
         search_reference.run(guide=g, guide_id=gid, ref=ref, output=out,
-                             engine="tpu")
+                             engine="device")
         singles.extend(read_metrics(out, ReferenceHit))
 
     key = lambda h: (h.guide_id, h.chromosome, h.coordinate_start, h.strand,

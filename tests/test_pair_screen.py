@@ -85,7 +85,7 @@ def _random_guide_query(rng, five_prime=False):
 
 class TestPairwiseDeviceParity:
     def test_tpu_engine_byte_identical(self, tmp_path):
-        """engine=tpu (pair screen + exact rev-skip) must write the exact
+        """engine=device (pair screen + exact rev-skip) must write the exact
         bytes of the host-only run, including competitive-rev pairs."""
         from calitas_tpu.tools import pairwise
 
@@ -108,7 +108,7 @@ class TestPairwiseDeviceParity:
         host = tmp_path / "host.txt"
         dev = tmp_path / "dev.txt"
         pairwise.run(input=inp, output=host, threads=2, engine="host")
-        pairwise.run(input=inp, output=dev, threads=2, engine="tpu")
+        pairwise.run(input=inp, output=dev, threads=2, engine="device")
         assert dev.read_bytes() == host.read_bytes()
         assert len(host.read_text().splitlines()) == 41
 
@@ -153,7 +153,7 @@ class TestA2RDeviceParity:
         dev = tmp_path / "dev.txt"
         kw = dict(input=inp, ref=ref, threads=2)
         align_to_reference.run(output=host, engine="host", **kw)
-        align_to_reference.run(output=dev, engine="tpu", **kw)
+        align_to_reference.run(output=dev, engine="device", **kw)
         assert table_without_timestamp(dev) == table_without_timestamp(host)
         assert len(host.read_text().splitlines()) == 13
 
@@ -170,7 +170,7 @@ class TestA2RDeviceParity:
             max_guide_diffs=3, max_pam_mismatches=1, max_overlap=5,
         )
         align_to_reference.run(output=host, engine="host", **kw)
-        align_to_reference.run(output=dev, engine="tpu", **kw)
+        align_to_reference.run(output=dev, engine="device", **kw)
         assert table_without_timestamp(dev) == table_without_timestamp(host)
         assert len(host.read_text().splitlines()) > 1
 
@@ -273,13 +273,13 @@ class TestA2RSlicedFinish:
             for k, pos in enumerate(loci):
                 fh.write(f"t{k}\t{guide}\tchr1\t{pos}\n")
         out_h = tmp_path / "host.txt"
-        out_t = tmp_path / "tpu.txt"
+        out_t = tmp_path / "device.txt"
         kw = dict(max_guide_diffs=4, max_pam_mismatches=1, max_overlap=10,
                   threads=2)
         align_to_reference.run(input=inp, ref=ref, output=out_h,
                                engine="host", **kw)
         align_to_reference.run(input=inp, ref=ref, output=out_t,
-                               engine="tpu", **kw)
+                               engine="device", **kw)
         rows_h = table_without_timestamp(out_h)
         rows_t = table_without_timestamp(out_t)
         assert rows_h == rows_t

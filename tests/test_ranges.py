@@ -1,6 +1,6 @@
 """Device end-column ranges → sliced native finish.
 
-The screen (XLA and Pallas paths) reports, per window and chain, the
+The screen (XLA scan and GPU kernel) reports, per window and chain, the
 (min, max) 1-based end columns whose guide-only final-row DP score
 reaches min_score.  The native finisher then runs the DP only on the
 containing column slice (aligner.cpp::run_pass_collect).  These tests pin
@@ -84,31 +84,30 @@ def test_xla_screen_ranges_match_bruteforce():
 
 
 def test_pallas_dual_ranges_match_bruteforce_interpret():
-    from calitas_tpu.ops.dp_pallas2 import _pallas_screen_dual, LANES
+    from calitas_tpu.ops import dp_kernel
 
     rng = np.random.default_rng(3)
     s = derive_scorer()
-    Q, T, B = 10, 32, 1024
+    Q, T, B = 10, 32, 2 * dp_kernel.BLOCK_W
     query = "".join(rng.choice(list("ACGT"), Q))
     qm_fw = encode_query(query)
     qm_rc = encode_query(revcomp(query))
     wins = rng.integers(1, 16, size=(B, T)).astype(np.uint8)
     ms = s.match_score * Q - 130
     kw = dict(
-        Q=Q, match=s.match_score, mismatch=s.mismatch_score,
+        match=s.match_score, mismatch=s.mismatch_score,
         qgap=s.query_gap_score, tgap=s.target_gap_score,
     )
-    tcols = jnp.asarray(wins.T.astype(np.int32).reshape(T, B // LANES, LANES))
-    qv2 = jnp.asarray(np.stack([qm_fw, qm_rc]).astype(np.int32))
-    best, ranges = _pallas_screen_dual(
-        qv2, tcols, ms, emit_ranges=True, interpret=True, **kw
+    qv = jnp.asarray(np.stack([qm_fw, qm_rc])[None].astype(np.int32))
+    best, ranges = dp_kernel.screen_multi(
+        qv, dp_kernel.pack_tcols(jnp.asarray(wins)), jnp.asarray([ms]),
+        T=T, Q=Q, emit_ranges=True, interpret=True, **kw
     )
-    best = np.asarray(best).reshape(2, B)
-    ranges = np.asarray(ranges).reshape(2, 2, B)
+    best = np.asarray(best)[0]
+    ranges = np.asarray(ranges)[0]
     for b in rng.choice(B, 40, replace=False):
         for c, qm in enumerate((qm_fw, qm_rc)):
-            row = brute_final_row(qm, wins[b], **{k: kw[k] for k in
-                                                  ("match", "mismatch", "qgap", "tgap")})
+            row = brute_final_row(qm, wins[b], **kw)
             check_ranges(
                 best[c, b], ranges[c, 0, b], ranges[c, 1, b], row, ms, T
             )
@@ -154,7 +153,7 @@ def test_sliced_finish_identical_to_full(pam):
     aligner = SequentialAligner()
     window, step = 200, 150
     screen = GenomeScreen(
-        aligner.scorer, window=window, batch_windows=1024, use_pallas=False
+        aligner.scorer, window=window, batch_windows=1024, use_kernel=False
     )
     dp_query = guide.guide_rc if guide.pam_is_5prime else guide.guide_fw
     min_score = aligner.min_guide_score(guide, KW["max_guide_diffs"])
@@ -230,7 +229,7 @@ def test_sliced_finish_exact_at_32768_window():
     aligner = SequentialAligner()
     step = window - 64
     screen = GenomeScreen(
-        aligner.scorer, window=window, batch_windows=128, use_pallas=False
+        aligner.scorer, window=window, batch_windows=128, use_kernel=False
     )
     dp_query = guide.guide_rc if guide.pam_is_5prime else guide.guide_fw
     min_score = aligner.min_guide_score(guide, KW["max_guide_diffs"])

@@ -81,55 +81,258 @@ class TestScreenEquivalence:
             assert best[0] == S[Q, 1:].max()
 
 
+def brute_gated_row(qmask, raw, scorer, gate):
+    """S[Q, 1..T] of the glocal DP over annotated bytes ``raw`` (low 4
+    bits = target mask) with the kernel's PAM gate: ``"end"`` lets only
+    columns with bit 4 end an alignment, ``"start"`` closes row 0 at
+    columns without bit 5 (column 0 stays open)."""
+    from calitas_tpu.ops.dp_kernel import NEG_GATE, NEG_INF
+
+    m, mm = scorer.match_score, scorer.mismatch_score
+    qg, tg = scorer.query_gap_score, scorer.target_gap_score
+    Q, T = len(qmask), len(raw)
+    S = np.zeros((Q + 1, T + 1), np.int64)
+    S[:, 0] = np.arange(Q + 1) * tg
+    if gate == "start":
+        S[0, 1:] = np.where(raw & 32, 0, NEG_GATE)
+    for i in range(1, Q + 1):
+        for j in range(1, T + 1):
+            pair = m if (qmask[i - 1] & raw[j - 1] & 15) else mm
+            S[i, j] = max(S[i - 1, j - 1] + pair, S[i, j - 1] + qg,
+                          S[i - 1, j] + tg)
+    row = S[Q, 1:]
+    if gate == "end":
+        row = np.where(raw & 16, row, NEG_INF)
+    return row
+
+
+def _kernel_scores(scorer):
+    s = scorer
+    return dict(match=s.match_score, mismatch=s.mismatch_score,
+                qgap=s.query_gap_score, tgap=s.target_gap_score)
+
+
+def _kernel_run(scorer, qvals, wins, ms=None, **kw):
+    """dp_kernel.screen_multi in the Pallas interpreter on host arrays."""
+    import jax.numpy as jnp
+
+    from calitas_tpu.ops import dp_kernel
+
+    return dp_kernel.screen_multi(
+        jnp.asarray(qvals), dp_kernel.pack_tcols(jnp.asarray(wins)),
+        None if ms is None else jnp.asarray(ms), T=wins.shape[1],
+        Q=qvals.shape[2], interpret=True, **_kernel_scores(scorer), **kw,
+    )
+
+
 class TestPallasKernelsInterpret:
-    """Pallas kernels in interpreter mode (CPU CI coverage)."""
+    """The GPU kernel (ops/dp_kernel.py) in the Pallas interpreter (CPU
+    coverage of its arithmetic).  Integer adds and maxima only — no
+    matrix product, so no TF32 or reduction-order question arises:
+    every comparison here is exact (tolerance 0)."""
 
-    def test_v2_matches_oracle(self, scorer):
-        from calitas_tpu.ops.dp_pallas2 import PallasScreenKernelV2
+    @pytest.mark.parametrize("Q", [1, 9, 23, 48])
+    def test_v2_matches_oracle(self, scorer, Q):
+        """Fuzz over query lengths up to the kernel's limit, both chains,
+        against the NumPy oracle; T = 45 leaves a ragged last word."""
+        from calitas_tpu.core.sequence import revcomp
+        from calitas_tpu.ops.dp_kernel import BLOCK_W, MAX_Q
 
-        Q, T, B = 12, 64, 1024  # one grid cell
-        query = random_seq(Q)
-        qmask = encode_query(query)
-        tmasks = RNG.integers(0, 15, size=(B, T), dtype=np.uint8)
-        tmasks[5, 10 : 10 + Q] = qmask
-        lengths = np.full(B, T, np.int32)
-        k = PallasScreenKernelV2(scorer, interpret=True)
-        best = k.max_scores(qmask, tmasks, lengths)
-        for b in [0, 5, 1023]:
-            S = dp_matrix(qmask, tmasks[b], scorer)
-            assert best[b] == S[Q, 1:].max()
+        assert Q <= MAX_Q
+        rng = np.random.default_rng(Q)
+        T, B = 45, BLOCK_W
+        query = "".join(rng.choice(list("ACGT"), Q))
+        qm = np.stack([encode_query(query), encode_query(revcomp(query))])
+        wins = rng.integers(0, 16, size=(B, T), dtype=np.uint8)
+        if Q <= T:
+            wins[5, 3 : 3 + Q] = qm[0]
+            wins[6, T - Q :] = qm[1]
+        best = np.asarray(_kernel_run(scorer, qm[None].astype(np.int32), wins))
+        for b in range(B):
+            for c in range(2):
+                S = dp_matrix(qm[c], wins[b], scorer)
+                assert best[0, c, b] == S[Q, 1:].max(), (b, c)
 
-    def test_dual_matches_two_singles(self, scorer):
+    @pytest.mark.parametrize("pam_gate", [False, True])
+    def test_kernel_ranges_match_gated_bruteforce(self, scorer, pam_gate):
+        from calitas_tpu.core.sequence import revcomp
+        from calitas_tpu.ops.dp_kernel import BLOCK_W
+
+        rng = np.random.default_rng(4)
+        Q, T, B = 10, 30, BLOCK_W
+        query = "".join(rng.choice(list("ACGT"), Q))
+        qm = np.stack([encode_query(query), encode_query(revcomp(query))])
+        wins = rng.integers(0, 64, size=(B, T), dtype=np.uint8)
+        ms = np.array([scorer.match_score * Q - 300], np.int32)
+        best, ranges = (
+            np.asarray(x)
+            for x in _kernel_run(scorer, qm[None].astype(np.int32), wins, ms,
+                               pam_gate=pam_gate, emit_ranges=True)
+        )
+        n_qual = 0
+        for b in rng.choice(B, 48, replace=False):
+            for c, gate in enumerate(("end", "start")):
+                row = brute_gated_row(qm[c], wins[b], scorer,
+                                      gate if pam_gate else None)
+                assert best[0, c, b] == row.max()
+                q = np.nonzero(row >= ms[0])[0] + 1
+                want = (q.min(), q.max()) if len(q) else (T + 1, 0)
+                assert tuple(ranges[0, c, :, b]) == want
+                n_qual += bool(len(q))
+        assert n_qual  # some windows qualify
+
+    @pytest.mark.parametrize("pam_gate", [False, True])
+    def test_dual_matches_two_singles(self, scorer, pam_gate):
+        """Maxima and ranges of a 2-guide launch equal the gated XLA scan
+        per guide and chain, bit for bit."""
         import jax.numpy as jnp
 
-        from calitas_tpu.core.sequence import revcomp
-        from calitas_tpu.ops.dp_pallas2 import (
-            LANES,
-            PallasScreenKernelV2,
-            _pallas_screen_dual,
-        )
+        from calitas_tpu.ops.dp_kernel import BLOCK_W
+        from calitas_tpu.ops.dp_screen import _screen_scores_ranges
 
-        Q, T, B = 10, 48, 1024
-        query = random_seq(Q)
-        qmask = encode_query(query)
-        qmask_rc = encode_query(revcomp(query))
-        tmasks = RNG.integers(0, 15, size=(B, T), dtype=np.uint8)
-        lengths = np.full(B, T, np.int32)
-        k = PallasScreenKernelV2(scorer, interpret=True)
-        s_fw = k.max_scores(qmask, tmasks, lengths)
-        s_rc = k.max_scores(qmask_rc, tmasks, lengths)
-        qv2 = np.stack([qmask, qmask_rc]).astype(np.int32)
-        tcols = tmasks.T.astype(np.int32).reshape(T, B // LANES, LANES)
-        dual = np.asarray(
-            _pallas_screen_dual(
-                jnp.asarray(qv2), jnp.asarray(tcols),
-                Q=Q, match=scorer.match_score, mismatch=scorer.mismatch_score,
-                qgap=scorer.query_gap_score, tgap=scorer.target_gap_score,
-                interpret=True,
+        rng = np.random.default_rng(8)
+        Q, T, B, G = 12, 40, 2 * BLOCK_W, 2
+        qvals = rng.integers(1, 16, size=(G, 2, Q)).astype(np.int32)
+        wins = rng.integers(0, 64, size=(B, T), dtype=np.uint8)
+        ms = np.array([200, 450], np.int32)
+        best, ranges = (
+            np.asarray(x)
+            for x in _kernel_run(scorer, qvals, wins, ms, pam_gate=pam_gate,
+                               emit_ranges=True)
+        )
+        lengths = jnp.full((B,), T, jnp.int32)
+        for g in range(G):
+            for c, gate in enumerate(("end", "start")):
+                b, mn, mx = _screen_scores_ranges(
+                    jnp.asarray(qvals[g, c].astype(np.uint8)),
+                    jnp.asarray(wins), lengths, int(ms[g]),
+                    gate=gate if pam_gate else None, **_kernel_scores(scorer)
+                )
+                np.testing.assert_array_equal(best[g, c], np.asarray(b))
+                np.testing.assert_array_equal(ranges[g, c, 0], np.asarray(mn))
+                np.testing.assert_array_equal(ranges[g, c, 1], np.asarray(mx))
+
+
+class TestMultiKernelPerChain:
+    def test_multi_matches_dual_per_guide(self, scorer):
+        """A G-guide launch equals G one-guide launches (interpret mode)."""
+        from calitas_tpu.ops.dp_kernel import BLOCK_W
+
+        rng = np.random.default_rng(9)
+        Q, T, G = 8, 24, 3
+        qvals = rng.integers(1, 16, size=(G, 2, Q)).astype(np.int32)
+        wins = rng.integers(0, 64, size=(BLOCK_W, T), dtype=np.uint8)
+        multi = np.asarray(_kernel_run(scorer, qvals, wins, pam_gate=True))
+        for g in range(G):
+            one = np.asarray(
+                _kernel_run(scorer, qvals[g : g + 1], wins, pam_gate=True)
             )
-        ).reshape(2, -1)
-        np.testing.assert_array_equal(dual[0], s_fw)
-        np.testing.assert_array_equal(dual[1], s_rc)
+            np.testing.assert_array_equal(multi[g], one[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pam_gate", [False, True])
+def test_compiled_kernel_matches_xla_scan(gpu, scorer, pam_gate):
+    """The kernel as compiled for the card (no interpreter) against the
+    XLA scan, exactly."""
+    import jax
+    import jax.numpy as jnp
+
+    from calitas_tpu.ops import dp_kernel
+    from calitas_tpu.ops.genome_screen import _xla_screen_multi
+
+    rng = np.random.default_rng(12)
+    Q, T, B, G = 23, 1000, 4 * dp_kernel.BLOCK_W, 2
+    with jax.default_device(gpu):
+        qvals = jnp.asarray(rng.integers(1, 16, size=(G, 2, Q)).astype(np.int32))
+        wins = jnp.asarray(rng.integers(0, 64, size=(B, T), dtype=np.uint8))
+        ms = jnp.asarray(np.array([700, 900], np.int32))
+        got = dp_kernel.screen_multi(
+            qvals, dp_kernel.pack_tcols(wins), ms, T=T, Q=Q,
+            pam_gate=pam_gate, emit_ranges=True, **_kernel_scores(scorer))
+        want = _xla_screen_multi(
+            qvals, wins, jnp.full((B,), T, jnp.int32), ms, G=G,
+            pam_gate=pam_gate, emit_ranges=True, **_kernel_scores(scorer))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+class TestKernelWrapper:
+    """What surrounds the kernel: the packed layout, batch padding and
+    the choice between kernel and XLA scan."""
+
+    @pytest.mark.parametrize("T", [4, 37, 1000])
+    def test_pack_tcols_layout(self, T):
+        import jax.numpy as jnp
+
+        from calitas_tpu.ops.dp_kernel import pack_tcols
+
+        rng = np.random.default_rng(T)
+        wins = rng.integers(0, 64, size=(16, T), dtype=np.uint8)
+        words = np.asarray(pack_tcols(jnp.asarray(wins)))
+        assert words.shape == (-(-T // 4), 16) and words.dtype == np.int32
+        # byte b of word w is column 4w+b; the ragged tail is zero
+        cols = words.T.copy().view(np.uint8).reshape(16, -1)
+        np.testing.assert_array_equal(cols[:, :T], wins)
+        assert not cols[:, T:].any()
+
+    def test_kernel_requires_whole_blocks(self, scorer):
+        import jax.numpy as jnp
+
+        from calitas_tpu.ops import dp_kernel
+
+        wins = jnp.zeros((dp_kernel.BLOCK_W + 8, 16), jnp.uint8)
+        with pytest.raises(ValueError):
+            dp_kernel.screen_multi(
+                jnp.ones((1, 2, 4), jnp.int32), dp_kernel.pack_tcols(wins),
+                T=16, Q=4, interpret=True, **_kernel_scores(scorer),
+            )
+
+    def test_kernel_for_routes_long_guides_to_xla(self, caplog):
+        import logging
+
+        from calitas_tpu.ops import genome_screen
+        from calitas_tpu.ops.dp_kernel import MAX_Q
+
+        genome_screen._LONG_GUIDES_LOGGED.discard(MAX_Q + 1)
+        assert genome_screen.kernel_for(True, MAX_Q)
+        assert not genome_screen.kernel_for(False, 20)
+        with caplog.at_level(logging.WARNING, "calitas_tpu.screen"):
+            assert not genome_screen.kernel_for(True, MAX_Q + 1)
+            assert not genome_screen.kernel_for(True, MAX_Q + 1)
+        assert len([r for r in caplog.records if "XLA scan" in r.message]) == 1
+
+    def test_default_engine_follows_platform(self, scorer, monkeypatch):
+        from calitas_tpu.ops import genome_screen
+
+        for platform, want in (("gpu", True), ("cpu", False)):
+            monkeypatch.setattr(
+                genome_screen, "default_device_platform", lambda p=platform: p
+            )
+            assert genome_screen.GenomeScreen(scorer).use_kernel is want
+
+    def test_long_guide_screens_on_xla_scan(self, scorer):
+        """A kernel-enabled screen given a guide past the kernel limit
+        returns the XLA screen's flags (no kernel launch)."""
+        from calitas_tpu.core.sequence import revcomp
+        from calitas_tpu.ops.dp_kernel import MAX_Q
+        from calitas_tpu.ops.genome_screen import GenomeScreen
+
+        rng = np.random.default_rng(10)
+        q = "".join(rng.choice(list("ACGT"), MAX_Q + 2))
+        bases = rng.choice(np.frombuffer(b"ACGT", np.uint8), 3000)
+        bases[1000 : 1000 + len(q)] = np.frombuffer(q.encode(), np.uint8)
+        out = []
+        for use_kernel in (True, False):
+            screen = GenomeScreen(scorer, window=256, use_kernel=use_kernel,
+                                  interpret=True)
+            out.append(screen.screen_contig(
+                screen.stage(bases), len(bases), 180, q, revcomp(q),
+                60 * len(q) - 300, return_ranges=True,
+            ))
+        np.testing.assert_array_equal(out[0][0], out[1][0])
+        np.testing.assert_array_equal(out[0][1], out[1][1])
+        assert out[0][0].any()
 
 
 class TestPamGate:
@@ -142,7 +345,7 @@ class TestPamGate:
 
         bases = np.frombuffer(contig.encode(), dtype=np.uint8)
         screen = GenomeScreen(
-            scorer, window=256, batch_windows=1024, use_pallas=True,
+            scorer, window=256, batch_windows=1024, use_kernel=True,
             interpret=interpret,
         )
         g = screen.stage(bases)
@@ -324,7 +527,7 @@ class TestMultiBatchScreen:
         flags = {}
         for bw in (128, 8192):  # 60k/step=100 -> 600 windows: 5 batches vs 1
             screen = GenomeScreen(
-                scorer, window=200, batch_windows=bw, use_pallas=False
+                scorer, window=200, batch_windows=bw, use_kernel=False
             )
             g = screen.stage(bases)
             flags[bw] = screen.screen_contig(
@@ -333,45 +536,6 @@ class TestMultiBatchScreen:
             )
         np.testing.assert_array_equal(flags[128], flags[8192])
         assert flags[128].any()  # non-degenerate
-
-
-class TestMultiKernelPerChain:
-    def test_multi_matches_dual_per_guide(self):
-        """The fused multi-guide kernel's per-chain maxima must equal the
-        dual kernel run per guide (interpret mode)."""
-        import jax.numpy as jnp
-
-        from calitas_tpu.core.sequence import revcomp
-        from calitas_tpu.ops.dp_pallas2 import (
-            LANES,
-            _pallas_screen_dual,
-            _pallas_screen_multi,
-        )
-
-        scorer = derive_scorer()
-        Q, T, B, G = 12, 40, 1024, 3
-        kw = dict(
-            Q=Q, match=scorer.match_score, mismatch=scorer.mismatch_score,
-            qgap=scorer.query_gap_score, tgap=scorer.target_gap_score,
-            interpret=True,
-        )
-        queries = [random_seq(Q) for _ in range(G)]
-        qvals = np.stack(
-            [
-                np.stack([encode_query(q), encode_query(revcomp(q))])
-                for q in queries
-            ]
-        ).astype(np.int32)
-        tmasks = RNG.integers(0, 15, size=(B, T), dtype=np.uint8)
-        tcols = jnp.asarray(tmasks.T.astype(np.int32).reshape(T, B // LANES, LANES))
-        multi = np.asarray(
-            _pallas_screen_multi(jnp.asarray(qvals), tcols, **kw)
-        ).reshape(G, 2, -1)
-        for g in range(G):
-            dual = np.asarray(
-                _pallas_screen_dual(jnp.asarray(qvals[g]), tcols, **kw)
-            ).reshape(2, -1)
-            np.testing.assert_array_equal(multi[g], dual)
 
 
 class TestSegmentedScreen:
@@ -398,7 +562,7 @@ class TestSegmentedScreen:
             bases[pos : pos + len(planted)] = planted
         scorer = derive_scorer()
         screen = GenomeScreen(
-            scorer, window=256, batch_windows=512, use_pallas=False
+            scorer, window=256, batch_windows=512, use_kernel=False
         )
         g = screen.stage(bases)
         min_score = 60 * len(dpq) - 5 * 122
@@ -494,10 +658,10 @@ class TestSlotFlagsMulti:
             np.testing.assert_array_equal(fl[0], (bf >= 0) | (br >= 0))
 
     def test_pallas_interpret_flags_are_exact_superset(self, scorer):
-        """The Pallas multi path ignores slot lengths (padding only adds
+        """The kernel path ignores slot lengths (padding only adds
         candidate end columns): flags must cover every length-honoring
         flag, and on full-length slots be exactly equal."""
-        from calitas_tpu.ops.dp_pallas2 import BLOCK_W
+        from calitas_tpu.ops.dp_kernel import BLOCK_W
         from calitas_tpu.ops.genome_screen import _slot_flags_multi, _unpack_flag_bits
         import jax.numpy as jnp
 
@@ -522,7 +686,7 @@ class TestSlotFlagsMulti:
         packed = _slot_flags_multi(
             jnp.asarray(qvals), jnp.asarray(tmasks),
             jnp.asarray(lengths), jnp.asarray(mins),
-            use_pallas=True, interpret=True, **kw
+            use_kernel=True, interpret=True, **kw
         )
         got = _unpack_flag_bits(np.asarray(packed), B)
         kernel = ScreenKernel(scorer)
@@ -609,8 +773,8 @@ class TestMultiGuideFullContract:
             bases[pos : pos + len(planted)] = planted
         return bases, guides
 
-    @pytest.mark.parametrize("use_pallas", [False, True])
-    def test_multi_async_equals_per_guide_async(self, use_pallas):
+    @pytest.mark.parametrize("use_kernel", [False, True])
+    def test_multi_async_equals_per_guide_async(self, use_kernel):
         from calitas_tpu.core.scoring import derive_scorer
         from calitas_tpu.core.sequence import revcomp
         from calitas_tpu.ops.genome_screen import GenomeScreen
@@ -618,8 +782,8 @@ class TestMultiGuideFullContract:
         bases, guides = self._setup()
         scorer = derive_scorer()
         screen = GenomeScreen(
-            scorer, window=256, batch_windows=1024, use_pallas=use_pallas,
-            interpret=use_pallas,
+            scorer, window=256, batch_windows=1024, use_kernel=use_kernel,
+            interpret=use_kernel,
         )
         gdev = screen.stage(bases)
         step = 230
@@ -697,7 +861,7 @@ class TestWideWindowRanges:
             bases[pos : pos + len(planted)] = planted
         step = window - 64
         screen = GenomeScreen(
-            scorer, window=window, batch_windows=256, use_pallas=False
+            scorer, window=window, batch_windows=256, use_kernel=False
         )
         g = screen.stage(bases)
         min_score = 60 * len(dpq) - 2 * 122
@@ -754,7 +918,7 @@ class TestWideWindowRanges:
             planted = np.frombuffer(site, dtype=np.uint8)
             bases[pos : pos + len(planted)] = planted
         screen = GenomeScreen(
-            scorer, window=4096, batch_windows=256, use_pallas=False
+            scorer, window=4096, batch_windows=256, use_kernel=False
         )
         gdev = screen.stage(bases)
         step = 4000
@@ -832,6 +996,38 @@ class TestBatchWindowsFor:
                 assert bw % unit == 0 and bw >= unit
 
 
+def window_pam_planes(wins, pam_spec):
+    """Window-local PAM gate planes, the reference for the staged
+    annotation.  pam_spec = (pams, max_pam_mm, max_gap) with pams a tuple
+    of DP-orientation PAM mask tuples.  end_ok[:, j]: some PAM fits
+    (<= max_pam_mm mismatches) at one of the gap offsets right after an
+    alignment ending at column j; start_ok[:, j]: some revcomp'd PAM fits
+    right before an alignment starting at column j+1.  Out-of-window
+    bases count as mismatches."""
+    from calitas_tpu.ops.genome_screen import _rc_mask
+
+    pams, max_mm, max_gap = pam_spec
+    bw, T = wins.shape
+    pad = max_gap + max(len(p) for p in pams) + 2
+    w = np.pad(wins, ((0, 0), (pad, pad)))
+    end_ok = np.zeros((bw, T), bool)
+    start_ok = np.zeros((bw, T), bool)
+    for pam in pams:
+        plen = len(pam)
+        rc_pam = tuple(_rc_mask(m) for m in reversed(pam))
+        for o in range(max_gap + 1):
+            mm_e = np.zeros((bw, T), np.int32)
+            mm_s = np.zeros((bw, T), np.int32)
+            for k in range(plen):
+                e0 = pad + 1 + o + k
+                mm_e += (w[:, e0 : e0 + T] & pam[k]) == 0
+                s0 = pad - o - plen + 1 + k
+                mm_s += (w[:, s0 : s0 + T] & rc_pam[k]) == 0
+            end_ok |= mm_e <= max_mm
+            start_ok |= mm_s <= max_mm
+    return end_ok.astype(np.uint8), start_ok.astype(np.uint8)
+
+
 class TestAnnotateGenomePam:
     """annotate_genome_pam (staged PAM gates): per-position bits must be
     a conservative superset of the window-local planes (window edges
@@ -848,10 +1044,7 @@ class TestAnnotateGenomePam:
         import jax.numpy as jnp
 
         from calitas_tpu.core.sequence import TARGET_MASK_TABLE
-        from calitas_tpu.ops.genome_screen import (
-            _pam_bit_planes,
-            annotate_genome_pam,
-        )
+        from calitas_tpu.ops.genome_screen import annotate_genome_pam
 
         rng = np.random.default_rng(5)
         letters = np.frombuffer(b"ACGTN", dtype=np.uint8)
@@ -869,7 +1062,7 @@ class TestAnnotateGenomePam:
         for start in (0, 777, 2048, 4096 - T):
             wins = masks[start : start + T][None, :]
             end_ok, start_ok = (
-                np.asarray(x) for x in _pam_bit_planes(jnp.asarray(wins), spec)
+                np.asarray(x) for x in window_pam_planes(wins, spec)
             )
             a_end = (anno[start : start + T] >> 4) & 1
             a_start = (anno[start : start + T] >> 5) & 1

@@ -351,7 +351,7 @@ class TestWideWindowWarning:
         with caplog.at_level(logging.INFO, logger="calitas_tpu.SearchReference"):
             search_reference.run(
                 guide=GUIDE, guide_id="w", ref=fasta, output=out,
-                engine="tpu", window_size=32768, chrom="chr2",
+                engine="device", window_size=32768, chrom="chr2",
             )
         assert not any(
             "without end-column ranges" in r.message for r in caplog.records
@@ -384,7 +384,7 @@ class TestWideWindowWarning:
         with caplog.at_level(logging.INFO, logger="calitas_tpu.SearchReference"):
             search_reference.run(
                 guide=GUIDE, guide_id="w", ref=fasta, output=out,
-                engine="tpu", window_size=4096, chrom="chr2",
+                engine="device", window_size=4096, chrom="chr2",
             )
         assert not any(
             "without end-column ranges" in r.message for r in caplog.records
@@ -418,7 +418,7 @@ class TestWideWindowWarning:
         with caplog.at_level(logging.WARNING, logger="calitas_tpu.SearchReference"):
             search_reference.run(
                 guide=GUIDE, guide_id="w", ref=fasta, output=out,
-                engine="tpu", chrom="chr2",
+                engine="device", chrom="chr2",
             )
         assert not any(
             "without end-column ranges" in r.message for r in caplog.records

@@ -55,17 +55,17 @@ def test_resident_searches_match_fresh_runs(genome, tmp_path):
     from calitas_tpu.tools import search_reference
 
     ref, vcf = genome
-    server = ResidentSearcher(ref, vcf, threads=1, engine="tpu")
+    server = ResidentSearcher(ref, vcf, threads=1, engine="device")
     # two sequential searches on the same resident genome
     t1 = server.search(GUIDE, "g1")
     t2 = server.search(GUIDE2, "g2", max_guide_diffs=4)
 
     f1 = tmp_path / "f1.tsv"
     search_reference.run(guide=GUIDE, guide_id="g1", ref=ref, variants=vcf,
-                         output=f1, threads=1, engine="tpu")
+                         output=f1, threads=1, engine="device")
     f2 = tmp_path / "f2.tsv"
     search_reference.run(guide=GUIDE2, guide_id="g2", ref=ref, variants=vcf,
-                         output=f2, threads=1, engine="tpu",
+                         output=f2, threads=1, engine="device",
                          max_guide_diffs=4)
     assert _strip_ts(t1) == _strip_ts(f1.read_text())
     assert _strip_ts(t2) == _strip_ts(f2.read_text())
@@ -74,11 +74,37 @@ def test_resident_searches_match_fresh_runs(genome, tmp_path):
 
 def test_resident_host_engine_identical(genome):
     ref, vcf = genome
-    tpu = ResidentSearcher(ref, vcf, threads=1, engine="tpu")
+    dev = ResidentSearcher(ref, vcf, threads=1, engine="device")
     host = ResidentSearcher(ref, vcf, threads=1, engine="host")
-    a = tpu.search(GUIDE, "g1")
+    a = dev.search(GUIDE, "g1")
     b = host.search(GUIDE, "g1")
     assert _strip_ts(a) == _strip_ts(b)
+
+
+@pytest.mark.parametrize(
+    "error, degrades", [(RuntimeError, True), (TypeError, False)]
+)
+def test_staging_failure_policy(genome, monkeypatch, error, degrades):
+    """A device failure while staging degrades that contig to the host
+    (counted); a programming error propagates instead of hiding."""
+    from calitas_tpu.ops.genome_screen import GenomeScreen
+    from calitas_tpu.utils import degradations, reset_degradations
+
+    def stage(self, bases):
+        raise error("injected")
+
+    monkeypatch.setattr(GenomeScreen, "stage", stage)
+    ref, vcf = genome
+    reset_degradations()
+    if not degrades:
+        with pytest.raises(error):
+            ResidentSearcher(ref, vcf, threads=1, engine="device")
+        return
+    server = ResidentSearcher(ref, vcf, threads=1, engine="device")
+    assert degradations() == {"staging": 2}
+    host = ResidentSearcher(ref, vcf, threads=1, engine="host")
+    assert _strip_ts(server.search(GUIDE, "g1")) == _strip_ts(
+        host.search(GUIDE, "g1"))
 
 
 def test_serve_stdio_protocol(genome, tmp_path):

@@ -35,12 +35,12 @@ class TestShardedScreen:
         bases = np.frombuffer(contig.encode(), dtype=np.uint8)
         scorer = derive_scorer()
 
-        single = GenomeScreen(scorer, window=1000, batch_windows=512, use_pallas=False)
+        single = GenomeScreen(scorer, window=1000, batch_windows=512, use_kernel=False)
         f1 = single.screen_contig(
             single.stage(bases), len(bases), 970, guide, revcomp(guide), 590
         )
         sharded = ShardedGenomeScreen(
-            scorer, mesh8, window=1000, batch_windows=512, use_pallas=False
+            scorer, mesh8, window=1000, batch_windows=512, use_kernel=False
         )
         f2 = sharded.screen_contig(
             sharded.stage(bases), len(bases), 970, guide, revcomp(guide), 590
@@ -63,7 +63,7 @@ class TestShardedScreen:
         scorer = derive_scorer()
         pam_spec = (("ngg",), 1, 3)
 
-        kw = dict(window=250, batch_windows=1024, use_pallas=True,
+        kw = dict(window=250, batch_windows=1024, use_kernel=True,
                   interpret=True)
         single = GenomeScreen(scorer, **kw)
         f1, r1 = single.screen_contig(
@@ -173,10 +173,10 @@ class TestShardedPackedStaging:
         )
         scorer = derive_scorer()
         raw = ShardedGenomeScreen(
-            scorer, mesh8, window=256, use_pallas=False, pack_staging=False
+            scorer, mesh8, window=256, use_kernel=False, pack_staging=False
         )
         packed = ShardedGenomeScreen(
-            scorer, mesh8, window=256, use_pallas=False, pack_staging=True
+            scorer, mesh8, window=256, use_kernel=False, pack_staging=True
         )
         a = raw.stage(bases)
         b = packed.stage(bases)
@@ -203,14 +203,14 @@ class TestShardedAsyncScreen:
         scorer = derive_scorer()
 
         single = GenomeScreen(
-            scorer, window=1000, batch_windows=128, use_pallas=False
+            scorer, window=1000, batch_windows=128, use_kernel=False
         )
         f1, r1 = single.screen_contig(
             single.stage(bases), len(bases), 970, guide, revcomp(guide),
             590, return_ranges=True,
         )
         sharded = ShardedGenomeScreen(
-            scorer, mesh8, window=1000, batch_windows=128, use_pallas=False
+            scorer, mesh8, window=1000, batch_windows=128, use_kernel=False
         )
         segs = sharded.screen_contig_async(
             sharded.stage(bases), len(bases), 970, guide, revcomp(guide),
@@ -277,11 +277,11 @@ class TestShardedMultiGuideScreen:
 
         f1, r1 = run(
             GenomeScreen(scorer, window=256, batch_windows=1024,
-                         use_pallas=False)
+                         use_kernel=False)
         )
         f2, r2 = run(
             ShardedGenomeScreen(scorer, mesh8, window=256,
-                                batch_windows=1024, use_pallas=False)
+                                batch_windows=1024, use_kernel=False)
         )
         np.testing.assert_array_equal(f1, f2)
         np.testing.assert_array_equal(r1, r2)
@@ -370,12 +370,12 @@ class TestShardedVariantPass:
         single = tmp_path / "single.txt"
         search_reference.run(
             guide=proto + "nrg", guide_id="g", ref=ref, variants=vcf,
-            output=single, engine="tpu", threads=1,
+            output=single, engine="device", threads=1,
         )
         meshed = tmp_path / "meshed.txt"
         search_reference.run(
             guide=proto + "nrg", guide_id="g", ref=ref, variants=vcf,
-            output=meshed, engine="tpu", threads=1, mesh=mesh8,
+            output=meshed, engine="device", threads=1, mesh=mesh8,
         )
         assert rows(single) == rows(meshed)
         # the variant-restored site must be present (variant columns set)

@@ -49,7 +49,7 @@ def test_engine_differential_many_seeds(tmp_path):
         search_reference.run(guide=guide, guide_id="g", ref=ref,
                              output=out_h, engine="host")
         search_reference.run(guide=guide, guide_id="g", ref=ref,
-                             output=out_t, engine="tpu")
+                             output=out_t, engine="device")
         assert table_without_timestamp(out_h) == table_without_timestamp(out_t), (
             f"seed {seed} guide {guide}"
         )
@@ -199,7 +199,7 @@ def test_variant_pass_differential_many_seeds(tmp_path):
         search_reference.run(ref=ref, variants=vcf, output=out_h,
                              engine="host", guide_specs=specs)
         search_reference.run(ref=ref, variants=vcf, output=out_t,
-                             engine="tpu", guide_specs=specs)
+                             engine="device", guide_specs=specs)
         assert table_without_timestamp(out_h) == table_without_timestamp(
             out_t
         ), f"seed {seed}"
